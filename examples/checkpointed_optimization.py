@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import optax
 import orbax.checkpoint as ocp
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_cbox
 
 

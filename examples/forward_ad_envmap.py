@@ -23,8 +23,8 @@ if os.environ.get("JAX_PLATFORMS"):
 import numpy as np
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.core import transform as xf
+import psdr_jax as psdr
+from psdr_jax.core import transform as xf
 
 
 def build_scene(spp, sppe, sppse):

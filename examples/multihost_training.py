@@ -1,18 +1,19 @@
 """Multi-host inverse rendering with ``jax.distributed`` (2 processes).
 
 The reference scales by adding GPUs behind drjit's single-process CUDA
-stream; the TPU-native answer is SPMD over a global device mesh — each
+stream; the answer here is SPMD over a global device mesh — each
 host runs THIS SAME script, ``jax.distributed.initialize`` stitches the
 hosts into one mesh, and the shard_map training step partitions pixel
 rows + edge-sample lanes per device and ``psum``s parameter cotangents
-over ICI/DCN (parallel/shard.py).  The global-lane RNG contract
+over NVLink within a host and the network between hosts
+(parallel/shard.py).  The global-lane RNG contract
 (SURVEY.md §2.5, integrator/base.py) makes the sharded estimator EQUAL
 to the single-host one — scaling changes wall-clock, never the numbers
 (asserted by tests/test_multiprocess.py).
 
-On a real TPU pod slice each host launches with its own
-``coordinator_address``/``process_id`` (or just ``initialize()`` on Cloud
-TPU, which autodetects).  Without pod hardware, this example demonstrates
+On a real cluster each host launches with its own
+``coordinator_address``/``num_processes``/``process_id``.  Without a
+cluster, this example demonstrates
 the same code path by spawning a second local process, each side holding
 4 virtual CPU devices:
 
@@ -49,9 +50,9 @@ def main(pid: int, port: str):
     import numpy as np
     import optax
 
-    import psdr_jit_tpu as psdr
-    from psdr_jit_tpu.parallel.mesh import make_device_mesh
-    from psdr_jit_tpu.parallel.shard import make_fused_train_step
+    import psdr_jax as psdr
+    from psdr_jax.parallel.mesh import make_device_mesh
+    from psdr_jax.parallel.shard import make_fused_train_step
     from scenes import make_cbox
 
     log = print if pid == 0 else (lambda *a, **k: None)

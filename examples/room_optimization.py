@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_room
 
 
@@ -71,8 +71,8 @@ def main():
     params = {"tx": jnp.float32(0.0), "log_gain": jnp.float32(0.0)}
 
     if n_dev > 1:
-        from psdr_jit_tpu.parallel.mesh import make_device_mesh
-        from psdr_jit_tpu.parallel.shard import make_fused_train_step
+        from psdr_jax.parallel.mesh import make_device_mesh
+        from psdr_jax.parallel.shard import make_fused_train_step
 
         mesh = make_device_mesh(n_dev)
         step = make_fused_train_step(sc, integ, mesh, apply, ploss)

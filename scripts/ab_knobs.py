@@ -1,12 +1,13 @@
-"""Interleaved same-process A/B over integrator tuning knobs.
+"""Interleaved same-process A/B over integrator tuning knobs on one GPU.
 
-Fresh-process timings scatter over a 60-90 ms machine-state band
-(CLAUDE.md), so every knob decision must come from THIS harness: compile
-all variants once, then alternate timed blocks.
+Fresh-process timings drift, so a knob decision comes from this harness:
+compile every variant once, then alternate timed blocks, each step ended
+by block_until_ready on all outputs.  The workload is bench.py's headline
+fused step (cbox 512x512, spp=sppe=sppse=32, PathTracer(3)).
 
-Usage: nohup python -u scripts/ab_knobs.py > /tmp/ab_knobs.log 2>&1 &
-Edit VARIANTS below (module attributes are patched before each compile and
-read at trace time).
+Usage: python -u scripts/ab_knobs.py   (refuses to run without a GPU)
+Edit VARIANTS below (module attributes of integrator/base.py are patched
+before each compile and read at trace time).
 """
 
 import os
@@ -20,16 +21,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import psdr_jit_tpu as psdr
-import psdr_jit_tpu.integrator.base as base
+import psdr_jax as psdr
+import psdr_jax.integrator.base as base
+from chip_smoke import nvidia_smi_line
 from scenes import make_cbox
 
 # (name, {module attr: value})
 VARIANTS = [
-    ("base_96k_32k", {}),
-    ("chunks_80k_32k", {"CHUNK_LANES": 81920}),
-    ("chunks_112k_32k", {"CHUNK_LANES": 114688}),
-    ("edge_48k", {"EDGE_CHUNK_LANES": 49152}),
+    ("base_32k_32k", {}),
+    ("interior_16k", {"CHUNK_LANES": 16384}),
+    ("interior_64k", {"CHUNK_LANES": 65536}),
+    ("edge_64k", {"EDGE_CHUNK_LANES": 65536}),
 ]
 
 REPS = int(os.environ.get("AB_REPS", "4"))
@@ -37,6 +39,9 @@ ITERS = int(os.environ.get("AB_ITERS", "3"))
 
 
 def main():
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("ab_knobs: no GPU; timings off the card are not measured")
+    print(jax.devices()[0].device_kind, "|", nvidia_smi_line(), flush=True)
     sc = make_cbox(width=512, height=512, spp=32, sppe=32, sppse=32)
     sc.configure()
     integ = psdr.PathTracer(max_depth=3)
@@ -67,7 +72,8 @@ def main():
             return _integ.loss_and_grad(sc, p, apply, ploss, seed=s)[:2]
 
         fn = jax.jit(step)
-        float(jax.tree_util.tree_leaves(fn(p0, jnp.uint32(0), target))[0].sum())
+        jax.block_until_ready(fn(p0, jnp.uint32(0), target))
+        mesh.vertex_positions_raw, em.radiance = bv, br
         fns[name] = fn
         print("compiled", name, flush=True)
     for k, v in defaults.items():
@@ -78,15 +84,14 @@ def main():
         for name, fn in fns.items():
             t0 = time.perf_counter()
             for i in range(ITERS):
-                float(jax.tree_util.tree_leaves(
-                    fn(p0, jnp.uint32(rep * 31 + i + 1), target)
-                )[0].sum())
+                jax.block_until_ready(
+                    fn(p0, jnp.uint32(rep * 31 + i + 1), target))
             acc[name].append((time.perf_counter() - t0) / ITERS)
     for name, ts in acc.items():
         ms = [1e3 * t for t in ts]
-        print(f"{name}: min {min(ms):.1f} / mean {sum(ms)/len(ms):.1f} "
-              f"ms/step ({rays/min(ms)/1e3:.1f} Mrays/s at min)  "
-              f"reps={['%.1f' % x for x in ms]}", flush=True)
+        print(f"{name}: median {np.median(ms):.1f} / min {min(ms):.1f} "
+              f"ms/step ({rays / np.median(ms) / 1e3:.1f} Mrays/s at the "
+              f"median)  reps={['%.1f' % x for x in ms]}", flush=True)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 
 
 def _quads_to_mesh(quads, use_face_normals=True):
@@ -167,13 +167,14 @@ def make_gallery(width=128, height=128, spp=4, sppe=0, sppse=0,
                  n_spheres=80, subdiv=3, seed=0, edge_spheres=0):
     """Large-scene end-to-end workload: a lit box room filled with a jittered
     grid of smooth-shaded icospheres — ``n_spheres * 20 * 4^subdiv``
-    triangles (default 102,400), exercising the sorted-ray block-culled BVH
+    triangles (default 102,400), exercising the many-chunk intersection
     path inside a real render (the reference handles such scenes natively
     through its compacted OptiX GAS, scene_optix.cpp:265-333).
 
     ``edge_spheres``: enable boundary-edge extraction on the first N
     spheres (curved silhouettes in the secondary-edge set) — used by the
-    differentiable BVH-path bench metric; default off (forward metric)."""
+    differentiable large-scene bench metric; default off (forward
+    metric)."""
     sc = psdr.Scene()
     sc.opts = psdr.RenderOption(width, height, spp, sppe, sppse)
 

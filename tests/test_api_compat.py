@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_cbox
 
 
@@ -135,7 +135,7 @@ def test_bitmap_reference_attrs(tmp_path):
     b.rotate = 0.3
     np.testing.assert_allclose(np.asarray(b.trans), [0.1, 0.2], rtol=1e-6)
 
-    from psdr_jit_tpu import native
+    from psdr_jax import native
     if native.available():
         img = np.random.default_rng(0).uniform(0, 1, (4, 6, 3)).astype(np.float32)
         path = str(tmp_path / "t.exr")
@@ -196,7 +196,7 @@ def test_mesh_edge_indices_accessors():
 def test_add_envmap_filename_overload(tmp_path):
     """Scene.add_EnvironmentMap(filename, to_world, scale)
     (psdr.cpp:397, scene.cpp:85-96) and the one-envmap assert."""
-    from psdr_jit_tpu import native
+    from psdr_jax import native
     if not native.available():
         pytest.skip("native EXR codec unavailable")
     img = np.random.default_rng(1).uniform(0, 1, (4, 8, 3)).astype(np.float32)
@@ -222,3 +222,21 @@ def test_add_normalmap_bsdf():
     )
     assert sc.bsdf_ids[n] == "nm"
     assert "BSDF[id=nm]" in sc.param_map
+
+
+def test_former_package_name_is_an_alias():
+    """The package's former name (the ``psdr_jit_*`` directory beside
+    ``psdr_jax``) imports as ``psdr_jax`` itself, submodules included:
+    the same module objects, not a second copy."""
+    import importlib
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(psdr.__file__)))
+    (old,) = [d for d in os.listdir(root) if d.startswith("psdr_jit_")
+              and os.path.isfile(os.path.join(root, d, "__init__.py"))]
+    assert importlib.import_module(old) is psdr
+    from psdr_jax.ops import intersect
+
+    mod = importlib.import_module(old + ".ops.intersect")
+    assert mod is intersect
+    assert mod.__spec__.name == "psdr_jax.ops.intersect"

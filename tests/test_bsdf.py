@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.core.types import Frame, Intersection
-from psdr_jit_tpu.core.sampler import Sampler
+import psdr_jax as psdr
+from psdr_jax.core.types import Frame, Intersection
+from psdr_jax.core.sampler import Sampler
 
 N = 100_000
 

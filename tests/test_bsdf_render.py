@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_cbox, _quads_to_mesh, SHORT_BLOCK
 
 
@@ -126,10 +126,10 @@ def test_field_object_filter():
 def test_microfacet_pv_backward_has_no_scatter():
     """The per-vertex interpolation routes through one-hot matmuls
     (ops/gather.py), so the backward HLO of a per-vertex gradient contains
-    no scatter ops (each TPU scatter has ~30 ms fixed cost per bounce)."""
+    no scatter ops."""
     import jax.numpy as jnp
-    from psdr_jit_tpu.bsdf.microfacet_pv import MicrofacetBSDFPerVertex
-    from psdr_jit_tpu.core.types import Intersection, Frame
+    from psdr_jax.bsdf.microfacet_pv import MicrofacetBSDFPerVertex
+    from psdr_jax.core.types import Intersection, Frame
 
     nv, n = 64, 256
     rng = np.random.default_rng(0)

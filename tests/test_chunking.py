@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
-import psdr_jit_tpu.integrator.base as base
+import psdr_jax as psdr
+import psdr_jax.integrator.base as base
 from scenes import make_cbox
 
 
@@ -47,10 +47,10 @@ def test_chunked_gradient_matches_unchunked():
 
 
 def test_bvh_scene_routes_interior_chunks_and_stays_exact():
-    """BVH-class scenes route interior chunks to CHUNK_LANES_BVH
-    (integrator/base.interior_chunk_lanes, 2026-08-20) — the routed
-    partition must reproduce the 96k-pinned render bitwise (the global
-    per-lane RNG makes ANY lane partition exact, CLAUDE.md contract)."""
+    """Large scenes route interior chunks to CHUNK_LANES_LARGE
+    (integrator/base.interior_chunk_lanes) — the routed partition must
+    reproduce a many-chunk render bitwise (the global per-lane RNG makes
+    ANY lane partition exact)."""
     import pytest
     from scenes import make_bunny_envmap
 
@@ -59,17 +59,17 @@ def test_bvh_scene_routes_interior_chunks_and_stays_exact():
     except FileNotFoundError as e:
         pytest.skip(str(e))
     sc.configure()
-    assert base.interior_chunk_lanes(sc.data) == base.CHUNK_LANES_BVH
+    assert base.interior_chunk_lanes(sc.data) == base.CHUNK_LANES_LARGE
     integ = psdr.PathTracer(1)
     routed = np.asarray(integ.renderC(sc, 0, seed=3))
 
-    old = base.CHUNK_LANES_BVH
-    base.CHUNK_LANES_BVH = 64   # force many tiny interior chunks
+    old = base.CHUNK_LANES_LARGE
+    base.CHUNK_LANES_LARGE = 64   # force many tiny interior chunks
     try:
         sc2 = make_bunny_envmap(width=8, height=8, spp=4)
         sc2.configure()
         integ2 = psdr.PathTracer(1)
         pinned = np.asarray(integ2.renderC(sc2, 0, seed=3))
     finally:
-        base.CHUNK_LANES_BVH = old
+        base.CHUNK_LANES_LARGE = old
     np.testing.assert_allclose(pinned, routed, rtol=1e-6, atol=1e-7)

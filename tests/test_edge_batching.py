@@ -3,13 +3,12 @@
 The PE pass can evaluate its detached Li(ray_n)/Li(ray_p) pair as one
 double-width batch, and the SE pass can run its two independent detached
 intersections (p0 -> emitter, p0 -> receiver) as one double-width call
-(integrator/base.py pe_stack_enabled routing — default ON for BVH scenes,
-OFF for small scenes).  Batching must not change the estimator:
+(integrator/base.py pe_stack_enabled routing — default ON for large
+scenes, OFF for small scenes).  Batching must not change the estimator:
 
 * SE: the math is identical lane-for-lane; only XLA fusion tiling changes
   with batch width, which shifts gathered hit attributes by ULPs and can
-  flip a grazing-lane visibility tie on a tiny fraction of lanes (the same
-  documented effect as the megakernel parity gate, bench.py).  Assert
+  flip a grazing-lane visibility tie on a tiny fraction of lanes.  Assert
   image-level agreement with a loose relative bound and a small
   differing-pixel fraction.
 * PE: the stacked path deliberately uses common random numbers across the
@@ -33,8 +32,8 @@ sys.path.insert(0, os.path.dirname(__file__))
 import jax
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.integrator import base as ibase
+import psdr_jax as psdr
+from psdr_jax.integrator import base as ibase
 from scenes import make_cbox
 
 
@@ -103,30 +102,21 @@ def test_pe_stack_finite_and_scaled():
 
 
 def test_se_liveness_sort_matches_default():
-    """PSDR_SE_SORT=1 (liveness-sorted SE lanes + dense-path parking —
-    perf-refuted on the headline, scripts/rrows_ab.py, but the knob stays
-    for future workload classes) computes the SAME estimator: per-lane
-    draws are pure functions of the lane id, so sorting only permutes
-    scatter order (TPU A/B measured losses bitwise-identical)."""
-    from psdr_jit_tpu.ops import intersect_pallas as ip
-
+    """PSDR_SE_SORT=1 (liveness-sorted SE lanes; off by default) computes
+    the SAME estimator: per-lane draws are pure functions of the lane id,
+    so sorting only permutes scatter order."""
     sc = make_cbox(width=32, height=32, spp=0, sppe=0, sppse=8)
     sc.configure()
     integ = psdr.PathTracer(1)
     mesh0 = sc.param_map["Mesh[0]"]
 
-    prev = (ibase._SE_SORT, ip.DENSE_PARK)
+    prev = ibase._SE_SORT
     try:
         ibase._SE_SORT = False
         a = _se_grad_image(sc, integ, mesh0, False, seed=7)
         ibase._SE_SORT = True
-        ip.DENSE_PARK = True
-        # DENSE_PARK is read inside the module-level ray_intersect_pallas
-        # jit: clear it so the parking branch actually re-traces
-        ip.ray_intersect_pallas.clear_cache()
         b = _se_grad_image(sc, integ, mesh0, False, seed=7)
     finally:
-        ibase._SE_SORT, ip.DENSE_PARK = prev
-        ip.ray_intersect_pallas.clear_cache()
+        ibase._SE_SORT = prev
     assert np.isfinite(b).all()
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7)

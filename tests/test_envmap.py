@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.core import transform as xf
+import psdr_jax as psdr
+from psdr_jax.core import transform as xf
 
 
 def _plane_under_sky(L=1.0, rho=0.6, w=32, envres=(8, 16)):

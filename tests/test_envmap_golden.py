@@ -29,7 +29,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_bunny_envmap, REF_BUNNY, REF_BALLROOM
 
 _NB = "/root/reference/tutorials/Forward_AD_envmap.ipynb"

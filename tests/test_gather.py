@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psdr_jit_tpu.ops.gather import gather_rows, _split3
+from psdr_jax.ops.gather import gather_rows, _split3
 
 
 def _table(rng, f=64, d=33):

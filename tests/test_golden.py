@@ -8,7 +8,7 @@ INTENTIONAL, regenerate with:
 
     python -c "import jax; jax.config.update('jax_platforms','cpu'); \
         import sys; sys.path.insert(0,'tests'); import numpy as np; \
-        import psdr_jit_tpu as psdr; from scenes import make_cbox; \
+        import psdr_jax as psdr; from scenes import make_cbox; \
         sc = make_cbox(width=32, height=32, spp=4); sc.configure(); \
         np.save('tests/golden_cbox32.npy', np.asarray( \
             psdr.PathTracer(2).renderC(sc, 0, seed=0), np.float32))"
@@ -18,7 +18,7 @@ import os
 
 import numpy as np
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_cbox
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_cbox32.npy")
@@ -34,7 +34,7 @@ def test_cbox_matches_golden():
 
 
 def test_pfm_roundtrip(tmp_path):
-    from psdr_jit_tpu.utils.image import read_image, write_image
+    from psdr_jax.utils.image import read_image, write_image
 
     rng = np.random.default_rng(0)
     img = rng.uniform(0, 10, (9, 7, 3)).astype(np.float32)

@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.core import transform as xf
+import psdr_jax as psdr
+from psdr_jax.core import transform as xf
 
 
 def _quad_mesh(v0, v1, v2, v3, flip=False, edges=True):
@@ -84,12 +84,12 @@ def test_primary_edge_gradient_analytic():
         light.to_world_raw = base.at[0, 3].add(tx)
         return jnp.mean(integ.renderD(sc, 0, seed=seed))
 
-    grads = []
-    for seed in range(4):
-        _, d = jax.jvp(
-            lambda t: mean_img(t, seed), (jnp.float32(0.0),), (jnp.float32(1.0),)
-        )
-        grads.append(float(d))
+    @jax.jit  # one program for every seed (eager, each op compiles alone)
+    def dmean(seed):
+        return jax.jvp(lambda t: mean_img(t, seed), (jnp.float32(0.0),),
+                       (jnp.float32(1.0),))[1]
+
+    grads = [float(dmean(jnp.uint32(seed))) for seed in range(4)]
     light.to_world_raw = base
     g = np.mean(grads)
     np.testing.assert_allclose(g, 0.5, rtol=0.05)
@@ -143,16 +143,16 @@ def test_primary_edge_bf16_adjoint_delta_pinned():
     """Pin the documented bf16 rounding of the reverse-mode edge adjoint.
 
     The default ``PSDR_SPLAT_T=rows_bf16`` transpose gathers the loss
-    cotangent image from a bf16 table (ops/image.py:98-105).  This test pins
-    the contract in docs/PERFORMANCE.md:142-148: the deterministic rounding
-    stays ~0.4% (<1e-2 relative) of the f32 gradient, and the f32 ``rows``
+    cotangent image from a bf16 table (ops/image.py).  This test pins the
+    contract: the deterministic rounding stays ~0.4% (<1e-2 relative) of
+    the f32 gradient, and the f32 ``rows``
     transpose matches forward-mode exactly.  A change that amplifies the
     bf16 error past 1% fails here.
 
     The loss is a *random-weighted* pixel sum: a mean loss has a
     power-of-two adjoint (exact in bf16) and would pin nothing.
     """
-    from psdr_jit_tpu.ops import image as image_ops
+    from psdr_jax.ops import image as image_ops
 
     sc, light = _primary_edge_scene(x0=0.3, w=64, sppe=16)
     sc.configure()
@@ -268,12 +268,12 @@ def test_secondary_edge_gradient_analytic():
         occluder.to_world_raw = base.at[0, 3].add(tx)
         return jnp.mean(integ.renderD(sc, 0, seed=seed))
 
-    grads = []
-    for seed in range(6):
-        _, d = jax.jvp(
-            lambda t: mean_img(t, seed), (jnp.float32(0.0),), (jnp.float32(1.0),)
-        )
-        grads.append(float(d))
+    @jax.jit  # one program for every seed (eager, each op compiles alone)
+    def dmean(seed):
+        return jax.jvp(lambda t: mean_img(t, seed), (jnp.float32(0.0),),
+                       (jnp.float32(1.0),))[1]
+
+    grads = [float(dmean(jnp.uint32(seed))) for seed in range(6)]
     occluder.to_world_raw = base
     g = np.mean(grads)
     expect = _shadow_analytic(rho, L, hl)

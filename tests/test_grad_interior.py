@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_cbox
 
 
@@ -31,9 +31,11 @@ def test_albedo_gradient_fd(cbox):
         bsdf.reflectance.data = base * s
         return jnp.mean(integ.renderD(cbox, 0, seed=0))
 
-    g = float(jax.grad(loss)(jnp.float32(1.0)))
+    # jitted: eager, every op of the render compiles on its own
+    g = float(jax.jit(jax.grad(loss))(jnp.float32(1.0)))
     eps = 1e-2
-    fd = (float(loss(jnp.float32(1 + eps))) - float(loss(jnp.float32(1 - eps)))) / (2 * eps)
+    floss = jax.jit(loss)
+    fd = (float(floss(jnp.float32(1 + eps))) - float(floss(jnp.float32(1 - eps)))) / (2 * eps)
     bsdf.reflectance.data = base
     assert g > 0.0
     np.testing.assert_allclose(g, fd, rtol=2e-2)

@@ -4,7 +4,7 @@ The derivative-only splat (reference splat semantics: CUDA scatter_reduce
 atomics, integrator.cpp:127-129) must behave as a linear scatter-add in
 BOTH AD modes while its primal stays exactly zero, for every transpose
 formulation (the reverse-mode gather is hand-written via linear_call to
-control its TPU lowering).
+control its lowering).
 """
 
 import numpy as np
@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu.ops.image as im
+import psdr_jax.ops.image as im
 
 N_PIX, N = 23, 71
 

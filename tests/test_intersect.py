@@ -2,15 +2,16 @@
 
 The detached intersection contract is the OptiX payload
 (reference scene_optix.cpp:400-404): (global_tri_id, valid, uv, t).
-Both backends (blocked JAX brute force and the Pallas kernel) must agree
-with a plain numpy O(N*F) oracle.
+Both backends (blocked JAX brute force and the Triton kernel, see
+test_intersect_pallas.py) must agree with a plain numpy O(N*F) oracle.
 """
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from psdr_jit_tpu.core.types import Ray, RAY_EPSILON
-from psdr_jit_tpu.ops.intersect import ray_intersect_brute, ray_intersect_detached
+from psdr_jax.core.types import Ray, RAY_EPSILON
+from psdr_jax.ops.intersect import ray_intersect_brute, ray_intersect_detached
 
 
 def _numpy_oracle(p0, e1, e2, ro, rd):
@@ -106,15 +107,14 @@ def test_detached_respects_active_mask():
 
 
 def test_detached_scrubs_rays_for_bvh_scale_scenes(monkeypatch):
-    """Above BVH_MIN_TRIS the Pallas dispatch reaches the BVH path, whose
-    tile-level min/max culling bounds a NaN ray would poison for all 8192
-    rays of its tile — the detached entry point must substitute corrupt
-    rays BEFORE that backend (regression: the dense-kernel NaN shortcut
-    must not extend to the BVH path)."""
-    import psdr_jit_tpu.ops.intersect as inter
-    from psdr_jit_tpu.ops import intersect_pallas as ip
+    """Each backend gets the dead lanes in the form it needs, at every
+    scene size: the blocked reference (whose min-reductions a NaN t would
+    poison) gets harmless substitute rays, the kernel gets the lanes
+    flagged dead in its active mask."""
+    import psdr_jax.ops.intersect as inter
+    from psdr_jax.ops import intersect_pallas as ip
 
-    f = ip.BVH_MIN_TRIS + 8
+    f = inter.LARGE_SCENE_TRIS + 8
     rng = np.random.default_rng(5)
     p0 = jnp.asarray(rng.uniform(-1, 1, (f, 3)), jnp.float32)
     e1 = jnp.asarray(rng.uniform(-1, 1, (f, 3)), jnp.float32)
@@ -126,19 +126,88 @@ def test_detached_scrubs_rays_for_bvh_scale_scenes(monkeypatch):
 
     seen = {}
 
-    def fake_pallas(p0, e1, e2, o2, d2, active=None, interpret=False):
-        seen["o"], seen["d"] = np.asarray(o2), np.asarray(d2)
-        seen["active"] = None if active is None else np.asarray(active)
-        n = o2.shape[0]
-        return (jnp.full((n,), -1, jnp.int32), jnp.zeros((n,), bool),
-                jnp.zeros((n, 2), jnp.float32), jnp.full((n,), 1e30))
+    def fake(name):
+        def run(p0, e1, e2, o2, d2, active=None, **kw):
+            seen[name] = (np.asarray(o2), np.asarray(d2),
+                          None if active is None else np.asarray(active))
+            n = o2.shape[0]
+            return (jnp.full((n,), -1, jnp.int32), jnp.zeros((n,), bool),
+                    jnp.zeros((n, 2), jnp.float32), jnp.full((n,), 1e30))
+        return run
 
-    monkeypatch.setattr(ip, "ray_intersect_pallas", fake_pallas)
-    inter.ray_intersect_detached(
-        p0, e1, e2, Ray(jnp.asarray(ro), jnp.asarray(rd)), backend="pallas"
-    )
-    assert np.isfinite(seen["o"]).all() and np.isfinite(seen["d"]).all()
-    # and the corrupt lanes are flagged dead for BVH-path parking
-    assert seen["active"] is not None
-    assert not seen["active"][3] and not seen["active"][7]
-    assert seen["active"].sum() == 14
+    monkeypatch.setattr(ip, "ray_intersect_pallas", fake("kernel"))
+    monkeypatch.setattr(inter, "ray_intersect_brute", fake("brute"))
+    ray = Ray(jnp.asarray(ro), jnp.asarray(rd))
+    inter.ray_intersect_detached(p0, e1, e2, ray, backend="pallas")
+    inter.ray_intersect_detached(p0, e1, e2, ray, backend="brute")
+    o, d, _ = seen["brute"]
+    assert np.isfinite(o).all() and np.isfinite(d).all()
+    _, _, active = seen["kernel"]
+    assert active is not None
+    assert not active[3] and not active[7] and active.sum() == 14
+
+
+@pytest.mark.parametrize("platform,env,expect", [
+    ("gpu", None, "pallas"),
+    ("cpu", None, "brute"),
+    ("gpu", "brute", "brute"),
+    ("cpu", "interpret", "interpret"),
+    ("gpu", "pallas", "pallas"),
+])
+def test_backend_dispatch(monkeypatch, platform, env, expect):
+    """Only a GPU gets the compiled kernel unasked; PSDR_INTERSECT
+    overrides; nothing falls back to the reference on a GPU."""
+    import psdr_jax.ops.intersect as inter
+
+    monkeypatch.setattr(inter.jax, "default_backend", lambda: platform)
+    if env is None:
+        monkeypatch.delenv("PSDR_INTERSECT", raising=False)
+    else:
+        monkeypatch.setenv("PSDR_INTERSECT", env)
+    assert inter.intersect_backend() == expect
+    assert inter.intersect_backend("brute") == "brute"
+
+
+def test_backend_dispatch_rejects_unknown_values(monkeypatch):
+    import psdr_jax.ops.intersect as inter
+
+    monkeypatch.setenv("PSDR_INTERSECT", "tile-bvh")
+    with pytest.raises(ValueError):
+        inter.intersect_backend()
+
+
+def test_detached_dispatch_reaches_the_kernel_on_gpu(monkeypatch):
+    """With the backend reported as a GPU the scene-layer entry point
+    calls the kernel (here swapped for its interpreted form)."""
+    import psdr_jax.ops.intersect as inter
+    from psdr_jax.ops import intersect_pallas as ip
+
+    calls = []
+    real = ip.ray_intersect_pallas
+
+    def spy(*a, **kw):
+        calls.append(kw.get("interpret"))
+        return real(*a, **{**kw, "interpret": True})
+
+    monkeypatch.setattr(inter.jax, "default_backend", lambda: "gpu")
+    monkeypatch.delenv("PSDR_INTERSECT", raising=False)
+    monkeypatch.setattr(ip, "ray_intersect_pallas", spy)
+    p0, e1, e2, ro, rd = _random_scene(n_tri=20, n_ray=40, seed=6)
+    got = inter.ray_intersect_detached(
+        *(jnp.asarray(x) for x in (p0, e1, e2)),
+        Ray(jnp.asarray(ro), jnp.asarray(rd)))
+    assert calls == [False]
+    ref = ray_intersect_brute(*(jnp.asarray(x) for x in (p0, e1, e2, ro, rd)))
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
+
+
+def test_large_scene_predicate():
+    import psdr_jax.ops.intersect as inter
+
+    class _SD:
+        def __init__(self, n):
+            self.face_mesh_id = np.zeros((n,), np.int32)
+
+    assert not inter.is_large_scene(None)
+    assert not inter.is_large_scene(_SD(inter.LARGE_SCENE_TRIS))
+    assert inter.is_large_scene(_SD(inter.LARGE_SCENE_TRIS + 1))

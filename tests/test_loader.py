@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 
 XML = """
 <scene version="0.5.0">
@@ -110,7 +110,7 @@ def test_loader_reference_node_ordering_and_paths(tmp_path):
     attribute, textured BSDF parameters load and resolve against the
     scene's directory, and roughconductor alpha accepts a texture."""
     import os
-    from psdr_jit_tpu.utils.image import write_pfm
+    from psdr_jax.utils.image import write_pfm
 
     # assets in the scene dir
     obj = tmp_path / "quad.obj"

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.shape.mesh import (
+import psdr_jax as psdr
+from psdr_jax.shape.mesh import (
     build_edge_list, process_mesh, sample_position,
 )
-from psdr_jit_tpu.core.sampler import Sampler
+from psdr_jax.core.sampler import Sampler
 
 
 QUAD_V = np.asarray(
@@ -115,8 +115,8 @@ def test_tri_perm_staleness_monitor():
     """Two initially-overlapping meshes share Morton clusters; pulling one
     far away makes those clusters span the gap — staleness detects it and
     refresh_tri_perm rebuilds the ordering."""
-    import psdr_jit_tpu as psdr
-    from psdr_jit_tpu.core import transform as xf
+    import psdr_jax as psdr
+    from psdr_jax.core import transform as xf
 
     rng = np.random.default_rng(0)
     sc = psdr.Scene()

@@ -1,12 +1,12 @@
 """Multi-host (multi-process) execution of the sharded training step.
 
-SURVEY.md §2.5 names DCN/multi-host as a first-class TPU-native component.
-Real multi-host hardware isn't available here, so this test spawns TWO
+SURVEY.md §2.5 names multi-host execution as a first-class component.
+This test spawns TWO
 separate OS processes connected through ``jax.distributed.initialize``
 (coordinator + worker), each owning 4 virtual CPU devices, and runs the
 shard_map training step over the resulting 8-device global mesh — the
-exact code path a 2-host TPU pod runs, with cross-process collectives in
-place of DCN.
+code path two hosts run, with cross-process collectives in place of the
+network between them.
 
 The global-lane RNG contract makes the sharded estimate equal the
 single-process one; we assert the distributed loss+grad matches a
@@ -24,9 +24,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.parallel.mesh import make_device_mesh
-from psdr_jit_tpu.parallel.shard import train_step_example
+import psdr_jax as psdr
+from psdr_jax.parallel.mesh import make_device_mesh
+from psdr_jax.parallel.shard import train_step_example
 from scenes import make_cbox
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,9 +49,9 @@ assert len(jax.devices()) == 4 * nproc
 import numpy as np
 import jax.numpy as jnp
 sys.path.insert(0, %(here)r)
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.parallel.mesh import make_device_mesh
-from psdr_jit_tpu.parallel.shard import train_step_example
+import psdr_jax as psdr
+from psdr_jax.parallel.mesh import make_device_mesh
+from psdr_jax.parallel.shard import train_step_example
 from scenes import make_cbox
 
 sc = make_cbox(width=16, height=16, spp=4, sppe=4, sppse=4)

@@ -4,8 +4,8 @@ import os
 import numpy as np
 import pytest
 
-from psdr_jit_tpu import native
-from psdr_jit_tpu.utils import obj as obj_io
+from psdr_jax import native
+from psdr_jax.utils import obj as obj_io
 
 
 requires_native = pytest.mark.skipif(

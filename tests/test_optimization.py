@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_cbox
 
 

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
-import psdr_jit_tpu.integrator.base as base_mod
+import psdr_jax as psdr
+import psdr_jax.integrator.base as base_mod
 from scenes import make_cbox
 
 
@@ -114,8 +114,8 @@ def test_non_prb_integrator_keeps_chunk_checkpoint_under_prb_mode():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    import psdr_jit_tpu as psdr
-    import psdr_jit_tpu.integrator.base as base_mod
+    import psdr_jax as psdr
+    import psdr_jax.integrator.base as base_mod
     from scenes import make_cbox
 
     sc = make_cbox(width=16, height=16, spp=2)

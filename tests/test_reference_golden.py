@@ -38,7 +38,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 
 _NB = "/root/reference/tutorials/Forward_AD.ipynb"
 _DATA = "/root/reference/tutorials/data/cbox"

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
+import psdr_jax as psdr
 from scenes import make_cbox
 
 

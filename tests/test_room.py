@@ -11,9 +11,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.parallel.mesh import make_device_mesh
-from psdr_jit_tpu.parallel.shard import make_fused_train_step
+import psdr_jax as psdr
+from psdr_jax.parallel.mesh import make_device_mesh
+from psdr_jax.parallel.shard import make_fused_train_step
 from scenes import make_room
 
 W = H = 16

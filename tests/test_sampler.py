@@ -9,7 +9,7 @@ sample values exactly.
 import numpy as np
 import jax.numpy as jnp
 
-from psdr_jit_tpu.core.sampler import Sampler
+from psdr_jax.core.sampler import Sampler
 
 
 def test_uniform_moments():

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.parallel.mesh import make_device_mesh
-from psdr_jit_tpu.parallel.shard import train_step_example
+import psdr_jax as psdr
+from psdr_jax.parallel.mesh import make_device_mesh
+from psdr_jax.parallel.shard import train_step_example
 from scenes import make_cbox
 
 

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.parallel.mesh import make_device_mesh, render_sharded
+import psdr_jax as psdr
+from psdr_jax.parallel.mesh import make_device_mesh, render_sharded
 from scenes import make_cbox
 
 
@@ -37,22 +37,17 @@ def test_sharded_matches_single(cbox):
 
 
 def test_sharded_bvh_path_matches_single(monkeypatch):
-    """shard_map x the sorted-ray block-culled BVH intersect path: a
-    >BVH_MIN_TRIS scene on the 8-device mesh equals the single-device
-    render.  PSDR_INTERSECT=interpret runs the exact TPU-path program
-    (Morton sort, tile-vs-block culling, data-dependent block streaming)
-    through the Pallas interpreter; BVH_MIN_TRIS is lowered so a small
-    scene routes there.  Per-device ray sorting partitions differently
-    than the global sort, but the per-ray closest hit is order-exact."""
+    """Sharding x the intersection kernel: a many-chunk scene rendered
+    through the Triton kernel (PSDR_INTERSECT=interpret runs the kernel
+    program through the Pallas interpreter) on the 8-device mesh equals
+    the single-device render."""
     from scenes import make_gallery
-    from psdr_jit_tpu.ops import intersect_pallas
 
     monkeypatch.setenv("PSDR_INTERSECT", "interpret")
-    monkeypatch.setattr(intersect_pallas, "BVH_MIN_TRIS", 256)
     sc = make_gallery(width=16, height=16, spp=1, n_spheres=4, subdiv=1)
     sc.configure()
     n_tris = sum(m.num_faces for m in sc.meshes)
-    assert n_tris > 256  # really routes through ops/bvh.py
+    assert n_tris > 256  # many kernel chunks, culling on
     integ = psdr.PathTracer(max_depth=1)
     single = np.asarray(integ.renderC(sc, 0, seed=3))
     mesh = make_device_mesh(8)
@@ -64,9 +59,9 @@ def test_sharded_bvh_path_matches_single(monkeypatch):
 
 def test_sharded_envmap_alias_matches_single():
     """shard_map x (envmap alias importance tables, packed bilinear
-    fetches, microfacet BSDF, BVH-routed 4968-tri bunny): the sharded
-    differentiable render equals single-device.  Covers the paths the
-    cbox-class sharding tests never touch (VERDICT r3 weak-#6)."""
+    fetches, microfacet BSDF, the 4968-tri bunny through the kernel): the
+    sharded differentiable render equals single-device.  Covers the paths
+    the cbox-class sharding tests never touch."""
     import os
     from scenes import make_bunny_envmap
 

@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import psdr_jit_tpu as psdr
-from psdr_jit_tpu.core.bitmap import Bitmap
+import psdr_jax as psdr
+from psdr_jax.core.bitmap import Bitmap
 
 
 def _smooth_tex(n=16):
@@ -63,7 +63,7 @@ def test_textured_floor_uv_translate_in_render():
     """UV-translation gradient flows through a full render (a UV-mapped
     plane; meshes without UVs evaluate at the texel-corner uv=0 where the
     bilinear derivative is discontinuous)."""
-    from psdr_jit_tpu.core import transform as xf
+    from psdr_jax.core import transform as xf
 
     sc = psdr.Scene()
     sc.opts.width = sc.opts.height = 16
@@ -127,7 +127,7 @@ def test_envmap_rotation_gradient():
     integ = psdr.PathTracer(1)
     env = sc.emitters[0]
 
-    from psdr_jit_tpu.core import transform as xf
+    from psdr_jax.core import transform as xf
 
     # rotate about a HORIZONTAL axis: a vertical-axis rotation leaves the
     # horizontal plane's irradiance exactly invariant (zero gradient)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from psdr_jit_tpu.core import warp
-from psdr_jit_tpu.core.sampler import Sampler
+from psdr_jax.core import warp
+from psdr_jax.core.sampler import Sampler
 
 
 def _uniform2(n, seed=0):
